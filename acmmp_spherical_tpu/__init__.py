@@ -1,14 +1,15 @@
-"""ACMMP-Spherical TPU: a TPU-native multi-view stereo engine.
+"""ACMMP-Spherical in JAX: a multi-view stereo engine for NVIDIA GPUs.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of the
 contineu-ai/ACMMP-Spherical reference (multi-scale geometric-consistency guided,
 planar-prior assisted PatchMatch MVS with pinhole + equirectangular spherical
-cameras), built for TPU hardware:
+cameras):
 
 * every CUDA kernel of the reference is a pure array program (vectorised over
-  all pixels) or a Pallas TPU kernel,
+  all pixels); the multi-view cost evaluation also has a per-pixel-tile Pallas
+  kernel compiled through Triton,
 * the red-black checkerboard PatchMatch is a functional half-lattice update,
-* multi-host scaling shards view clusters ("Problems") over a
+* multi-device scaling shards view clusters ("Problems") over a
   ``jax.sharding.Mesh`` and exchanges depth rasters with XLA collectives,
 * all randomness is counter-based (``jax.random``) and fully deterministic.
 

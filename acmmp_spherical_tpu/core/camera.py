@@ -5,8 +5,8 @@ camera rotation ``R`` (row-major), translation ``t`` (``X_cam = R @ X + t``),
 pinhole intrinsics ``K`` or spherical (equirectangular) params ``[f, cx, cy]``,
 image size and depth range.
 
-TPU-native design notes
------------------------
+Design notes
+------------
 * Cameras are a struct-of-arrays pytree (:class:`Cameras`) so a whole view set
   moves to the device as a handful of small arrays; a single view
   (:class:`Camera`) is the same pytree unbatched.

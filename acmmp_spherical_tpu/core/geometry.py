@@ -2,7 +2,7 @@
 
 Pure, shape-polymorphic functions: every routine takes pixel coordinates /
 points as arrays of any broadcastable shape and is safe under ``jit`` /
-``vmap`` / ``grad``.  These are the TPU-native equivalents of the reference's
+``vmap`` / ``grad``.  These are the array-program equivalents of the reference's
 device geometry helpers (reference ACMMP.cu:98-193, 307-396, 565-644) and host
 helpers (reference ACMMP.cpp:247-350).
 
@@ -32,9 +32,10 @@ INVALID_DEPTH = 1.0e6
 _PARALLEL_EPS = 1.0e-6
 
 
-# Camera transforms need full f32 accuracy: TPU matmuls default to bf16 inputs,
-# which is ~0.1 px error at 60 px and catastrophic at 3200 px.  K=3 contractions
-# are VPU-trivial, so HIGHEST costs nothing.
+# Camera transforms need full f32 accuracy: an f32 matmul may otherwise run at
+# reduced precision (TF32 on the GPU keeps ~3 decimal digits), which is ~0.1 px
+# error at 60 px and catastrophic at 3200 px.  K=3 contractions are trivial, so
+# HIGHEST costs nothing.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -212,7 +213,7 @@ def plane_homography(
     ``normal``/``w`` in the ref-cam frame as elsewhere.  Broadcasts over leading
     axes of ``normal`` (..., 3) and ``w`` (...,) producing (..., 3, 3).
     """
-    R_rel = src.R @ ref.R.T
+    R_rel = jnp.matmul(src.R, ref.R.T, precision=_HI)
     C_rel = camera_center(ref) - camera_center(src)
     t_rel = _mat3_vec(src.R, C_rel)
     nw = normal / w[..., None]

@@ -1,7 +1,7 @@
 """Plane-hypothesis state.
 
 The reference packs a hypothesis into a float4 (normal xyz + plane offset w,
-reference D4) living in one AoS buffer.  On TPU we keep struct-of-arrays:
+reference D4) living in one AoS buffer.  Here it is struct-of-arrays:
 ``normal`` (H, W, 3) + ``w`` (H, W), plus the per-pixel cost, the per-view
 selection mask (the reference's ``selected_views`` bitfield as a bool plane
 per view) and the hierarchy commit threshold ``pre_cost``.

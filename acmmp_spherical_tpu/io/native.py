@@ -1,34 +1,58 @@
 """ctypes bindings for the native C++ runtime library.
 
-Builds/loads ``native/libacmmp_native.so`` and exposes typed wrappers.  Every
-wrapper has a pure-numpy fallback, so the framework works without the native
-build; when present, the native paths are used automatically by the IO and
-prior modules (the same split as the reference, whose entire host runtime is
-C++).
+Builds ``native/libacmmp_native.so`` from ``native/acmmp_native.cpp`` at first
+use (the library is never committed; ``make -C native`` builds the same file)
+and exposes typed wrappers.  Every caller has a pure-numpy fallback, so the
+framework works without a C++ compiler; when the library is present the IO and
+prior modules use it (the same split as the reference, whose entire host
+runtime is C++).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
+_SOURCE = _NATIVE_DIR / "acmmp_native.cpp"
 _LIB_PATH = _NATIVE_DIR / "libacmmp_native.so"
+# the flags of native/Makefile; no -march=native, so the build gives the same
+# float results on every x86-64 host
+_CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-shared"]
 _lib = None
 _tried = False
 
 
+def build(target: Path = _LIB_PATH) -> None:
+    """Compile the library from source into ``target``.  The result is
+    renamed into place, so concurrent builds (test workers) never load a
+    half-written file.  Raises on failure."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise FileNotFoundError("no C++ compiler (g++/c++) on PATH")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=Path(target).parent)
+    os.close(fd)
+    try:
+        subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, str(_SOURCE)],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def _build() -> bool:
     try:
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True, timeout=120)
-        return _LIB_PATH.exists()
-    except Exception:
+        build()
+    except (OSError, subprocess.SubprocessError):
         return False
+    return True
 
 
 def load() -> ctypes.CDLL | None:

@@ -5,7 +5,7 @@ drop-in interchangeable (SURVEY.md L3 interface):
 
 .. code-block:: text
 
-    <dense>/images/%08d.jpg          input images
+    <dense>/images/%08d.jpg          input images (.png / .pgm also read)
     <dense>/cams/%08d_cam.txt        text camera files
     <dense>/pair.txt                 view-selection lists
     <dense>/ACMMP/2333_%08d/         per-view results: depths.dmb,
@@ -44,12 +44,14 @@ from typing import Sequence
 import numpy as np
 
 from acmmp_spherical_tpu.core.camera import Camera, PINHOLE, SPHERE, make_camera
+from acmmp_spherical_tpu.io.image import read_image, resize_bilinear, to_gray, to_rgb
 from acmmp_spherical_tpu.utils.log import get_logger
 
 log = get_logger(__name__)
 
 RESULT_DIR_FMT = "2333_{:08d}"  # reference main.cpp:79
 OUTPUT_SUBDIR = "ACMMP"
+IMAGE_EXTS = (".jpg", ".png", ".pgm")   # .jpg is the reference's layout
 
 
 @dataclasses.dataclass
@@ -225,6 +227,12 @@ class ScenePaths:
         return self.root / OUTPUT_SUBDIR
 
     def image_file(self, image_id: int) -> Path:
+        """The view's image: the first of ``IMAGE_EXTS`` that exists, else
+        the reference's ``%08d.jpg``."""
+        for ext in IMAGE_EXTS:
+            path = self.images_dir / f"{image_id:08d}{ext}"
+            if path.exists():
+                return path
         return self.images_dir / f"{image_id:08d}.jpg"
 
     def camera_file(self, image_id: int) -> Path:
@@ -252,36 +260,28 @@ class ScenePaths:
 
 def load_image_gray(path) -> np.ndarray:
     """Grayscale float32 image in 0..255 (reference ACMMP.cpp:578-580)."""
-    import cv2
-
-    img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
-    if img is None:
+    if not Path(path).exists():
         raise FileNotFoundError(path)
-    return img.astype(np.float32)
+    return to_gray(read_image(path))
 
 
 def load_image_color(path) -> np.ndarray:
     """RGB uint8 image (fusion colors)."""
-    import cv2
-
-    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
-    if img is None:
+    if not Path(path).exists():
         raise FileNotFoundError(path)
-    return img[..., ::-1].copy()  # BGR -> RGB
+    return to_rgb(read_image(path))
 
 
 def rescale_to_max_size(image: np.ndarray, max_size: int) -> tuple[np.ndarray, float, float]:
     """Downscale so both sides are <= max_size, preserving aspect
     (reference ACMMP.cpp:605-643).  Returns (image, scale_x, scale_y);
     identity if already small enough."""
-    import cv2
-
     h, w = image.shape[:2]
     if w <= max_size and h <= max_size:
         return image, 1.0, 1.0
     factor = min(max_size / w, max_size / h)
     new_w, new_h = round(w * factor), round(h * factor)
-    scaled = cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+    scaled = resize_bilinear(image, new_h, new_w)
     return scaled, new_w / w, new_h / h
 
 

@@ -4,7 +4,7 @@ Reference CheckerboardPropagation's first stage (ACMMP.cu:956-1144): each pixel
 collects 8 candidate hypotheses -- the min-*stored*-cost neighbour from four
 V-shaped "near" regions and four 2-px-strided "far" strips along the axes.
 
-TPU-native form: each region's candidate search is an elementwise argmin over a
+Array-program form: each region's candidate search is an elementwise argmin over a
 fixed set of statically *shifted* cost maps (cheap pad+slice copies, no
 gathers), then the winning neighbour's plane is selected with the same shifts.
 

@@ -6,7 +6,7 @@ two-ring checkerboard stencil (self + axis offsets 1/3/5 + 8 diagonal-ish
 taps), run black half then red half (the red half sees the black half's
 already-filtered depths, which the sequential masked update preserves here).
 
-TPU form: stack the statically shifted depth maps, mask out-of-bounds taps to
+Array-program form: stack the statically shifted depth maps, mask out-of-bounds taps to
 +inf, sort along the tap axis and index the masked median -- an elementwise
 sort of 21 lanes instead of per-thread insertion sort.
 """

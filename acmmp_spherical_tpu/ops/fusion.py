@@ -6,7 +6,7 @@ pixel, project the 3D point into every source view, count sources that agree
 (reprojection < 1 px, relative depth < 1%, normal angle < 0.149 rad), and emit
 the averaged point/normal/color when at least ``min_consistent`` views
 (including the reference) agree.  Per-pixel independent -- no cross-view
-masking -- which is exactly what makes it TPU/distribution friendly
+masking -- which is exactly what makes it accelerator/distribution friendly
 (SURVEY.md section 7).
 
 Dynamic point counts become a fixed-size (H*W) buffer + validity flags

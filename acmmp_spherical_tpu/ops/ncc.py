@@ -1,6 +1,6 @@
 """Bilateral-weighted NCC photo-consistency cost.
 
-TPU-native reformulation of the hot inner kernel (reference
+Array-program reformulation of the hot inner kernel (reference
 ComputeBilateralNCC, ACMMP.cu:398-516; ComputeMultiViewCostVector /
 ComputeMultiViewInitialCostandSelectedViews, ACMMP.cu:519-563):
 
@@ -183,8 +183,6 @@ def multiview_ncc(
             s_rs + wv * ref_pix[None] * src_pix,
         ), None
 
-    # note: unrolling this scan does not help -- the gather unit is already
-    # saturated (measured identical pass times at unroll=6)
     (s_bw, s_r, s_rr, s_s, s_ss, s_rs), _ = jax.lax.scan(
         body, init, (ctx.offsets, ctx.ref_taps, ctx.weights)
     )

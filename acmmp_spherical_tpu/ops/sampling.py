@@ -1,7 +1,6 @@
-"""Image sampling primitives -- the TPU replacement for CUDA texture units.
+"""Image sampling primitives -- the array-program stand-in for CUDA textures.
 
-TPUs have no texture hardware: bilinear/nearest lookups are explicit gathers
-plus lerps.  Addressing semantics follow the reference's *effective* behavior
+Bilinear/nearest lookups are explicit gathers plus lerps.  Addressing semantics follow the reference's *effective* behavior
 (SURVEY.md quirk notes): the reference sets ``cudaAddressModeWrap`` on
 non-normalised coords, which actually clamps; real seam handling is the
 explicit longitude wrap in the cost kernel (reference ACMMP.cu:425-427,
@@ -95,10 +94,9 @@ def pack_bilinear(
     +1 neighbours edge-clamped (pinhole) or longitude-wrapped (sphere) at the
     *logical* image border.
 
-    Rationale (measured on TPU v5e): XLA's gather costs ~the same per *row*
-    whether a row is 1 or 128 floats, so fetching all four corners as one
-    4-wide row is ~6x faster than four scalar gathers.  The packed table is
-    built once per pass with cheap shifts.
+    One gather row per sample fetches all four corners, in place of four
+    scalar gathers on the exact XLA cost path.  The packed table is built
+    once per pass with cheap shifts.
     Returns (Hp*Wp, 4) float32.
     """
     hp, wp = img.shape
@@ -164,164 +162,6 @@ def sample_bilinear_packed(
     top = corners[..., 0] + (corners[..., 1] - corners[..., 0]) * fx
     bot = corners[..., 2] + (corners[..., 3] - corners[..., 2]) * fx
     return top + (bot - top) * fy, valid
-
-
-def pack_bicubic(img: jax.Array, width, height, *, wrap_x: bool = False) -> jax.Array:
-    """Pack every pixel's clamped 4x4 neighbourhood into one 16-wide row.
-
-    XLA gather cost on TPU is per ROW regardless of row width (PERF.md), so
-    a Catmull-Rom bicubic sample against this table costs ONE gather instead
-    of the four 2x2-block gathers of :func:`sample_bicubic_packed`.  Rows
-    hold the block anchored at (r-1, c-1), row-major, with out-of-image
-    neighbours edge-clamped (``wrap_x=True`` wraps x instead -- equirect
-    longitude seam).  Returns (Hp*Wp, 16) float32.
-    """
-    hp, wp = img.shape
-    wi = width.astype(jnp.int32) if hasattr(width, "astype") else jnp.int32(width)
-    hi = height.astype(jnp.int32) if hasattr(height, "astype") else jnp.int32(height)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (hp, wp), 1)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (hp, wp), 0)
-
-    def shift_x(a, d):
-        if d == 0:
-            return a
-        lastc = jnp.take_along_axis(        # column (wi - 1), (hp, 1)
-            a, jnp.broadcast_to(
-                jnp.maximum(wi - 1, 0)[None, None], (hp, 1)), axis=1)
-        if d < 0:   # only d == -1 occurs
-            s = jnp.concatenate([jnp.repeat(a[:, :1], -d, 1), a[:, :d]], 1)
-            fill = lastc if wrap_x else a[:, :1]
-            return jnp.where(cols + d >= 0, s, fill)
-        s = jnp.concatenate([a[:, d:], jnp.repeat(a[:, -1:], d, 1)], 1)
-        if wrap_x:  # d in (1, 2): wrapped columns are 0 or 1
-            fill = jnp.where((cols + d - wi) == 0, a[:, 0:1], a[:, 1:2])
-        else:
-            fill = lastc
-        return jnp.where(cols + d < wi, s, fill)
-
-    def shift_y(a, d):
-        if d < 0:
-            s = jnp.concatenate([jnp.repeat(a[:1], -d, 0), a[:d]], 0)
-            return jnp.where(rows + d >= 0, s, a[:1])
-        if d > 0:
-            s = jnp.concatenate([a[d:], jnp.repeat(a[-1:], d, 0)], 0)
-            lastr = jnp.take_along_axis(
-                a, jnp.broadcast_to(
-                    jnp.maximum(hi - 1, 0)[None, None], (1, wp)), axis=0)
-            return jnp.where(rows + d < hi, s, lastr)
-        return a
-
-    xsh = [shift_x(img, d) for d in (-1, 0, 1, 2)]
-    planes = [shift_y(xs, d) for d in (-1, 0, 1, 2) for xs in xsh]
-    return jnp.stack(planes, axis=-1).reshape(hp * wp, 16)
-
-
-def sample_bicubic_packed16(
-    packed16: jax.Array,  # (Hp*Wp, 16) from pack_bicubic
-    padded_width: int,    # Wp (static)
-    x: jax.Array,
-    y: jax.Array,
-    width: jax.Array,
-    height: jax.Array,
-    *,
-    wrap_x: bool = False,
-):
-    """Catmull-Rom bicubic sample from the 16-wide pack: ONE gather/sample.
-
-    Semantics match :func:`sample_bicubic_packed` in the interior; within one
-    pixel of the border the edge-clamped neighbourhood yields a clamped
-    bicubic instead of that function's bilinear fallback (both are
-    border-blur conventions; validity is identical).  ``wrap_x=True`` wraps
-    x (pack built with wrap_x; equirect longitude seam).
-    """
-    x = jnp.asarray(x, jnp.float32)
-    y = jnp.asarray(y, jnp.float32)
-    if wrap_x:
-        x = x - jnp.floor(x / width) * width
-        valid = (y >= 0.0) & (y < height)
-    else:
-        valid = (x >= 0.0) & (x < width) & (y >= 0.0) & (y < height)
-    x0f = jnp.floor(x)
-    y0f = jnp.floor(y)
-    fx = x - x0f
-    fy = y - y0f
-    wi = width.astype(jnp.int32) if hasattr(width, "astype") else jnp.int32(width)
-    hi = height.astype(jnp.int32) if hasattr(height, "astype") else jnp.int32(height)
-    x0 = x0f.astype(jnp.int32)
-    x0 = jnp.remainder(x0, jnp.maximum(wi, 1)) if wrap_x else jnp.clip(x0, 0, wi - 1)
-    y0 = jnp.clip(y0f.astype(jnp.int32), 0, hi - 1)
-    block = packed16[y0 * padded_width + x0]      # (..., 16)
-    wx = _catmull_rom_weights(fx)
-    wy = _catmull_rom_weights(fy)
-    val = jnp.zeros_like(x)
-    for r in range(4):
-        rowv = jnp.zeros_like(x)
-        for c in range(4):
-            rowv = rowv + wx[c] * block[..., 4 * r + c]
-        val = val + wy[r] * rowv
-    return val, valid
-
-
-def _catmull_rom_weights(t):
-    t2 = t * t
-    t3 = t2 * t
-    return (-0.5 * t3 + t2 - 0.5 * t,
-            1.5 * t3 - 2.5 * t2 + 1.0,
-            -1.5 * t3 + 2.0 * t2 + 0.5 * t,
-            0.5 * t3 - 0.5 * t2)
-
-
-def sample_bicubic_packed(
-    packed: jax.Array,   # (Hp*Wp, 4) from pack_bilinear
-    padded_width: int,   # Wp (static)
-    x: jax.Array,
-    y: jax.Array,
-    width: jax.Array,
-    height: jax.Array,
-):
-    """Catmull-Rom bicubic sample using the packed corner table.
-
-    The 4x4 support block is fetched as FOUR packed rows (each carries a 2x2
-    sub-block), keeping the per-row gather economics of
-    :func:`sample_bilinear_packed`.  Within one pixel of the logical border
-    the sample falls back to the bilinear value (same validity semantics).
-    Used by the rectification warps (ops/rectify.py): a bilinear warp blurs
-    the frames enough to flatten the NCC cost valley and cost ~2x sub-pixel
-    depth accuracy at the bench operating point.
-    """
-    lin, valid = sample_bilinear_packed(packed, padded_width, x, y,
-                                        width, height, wrap_x=False)
-    x = jnp.asarray(x, jnp.float32)
-    y = jnp.asarray(y, jnp.float32)
-    x0f = jnp.floor(x)
-    y0f = jnp.floor(y)
-    fx = x - x0f
-    fy = y - y0f
-    wi = width.astype(jnp.int32) if hasattr(width, "astype") else jnp.int32(width)
-    hi = height.astype(jnp.int32) if hasattr(height, "astype") else jnp.int32(height)
-    x0 = x0f.astype(jnp.int32)
-    y0 = y0f.astype(jnp.int32)
-    interior = (x0 >= 1) & (x0 <= wi - 3) & (y0 >= 1) & (y0 <= hi - 3)
-    x0c = jnp.clip(x0, 1, jnp.maximum(wi - 3, 1))
-    y0c = jnp.clip(y0, 1, jnp.maximum(hi - 3, 1))
-
-    blocks = {}
-    for a in (0, 1):
-        for b in (0, 1):
-            idx = (y0c - 1 + 2 * a) * padded_width + (x0c - 1 + 2 * b)
-            blocks[(a, b)] = packed[idx]            # (..., 4) 2x2 sub-block
-
-    wx = _catmull_rom_weights(fx)
-    wy = _catmull_rom_weights(fy)
-    val = jnp.zeros_like(lin)
-    for r in range(4):
-        a, i = divmod(r, 2)
-        rowv = jnp.zeros_like(lin)
-        for c in range(4):
-            b, j = divmod(c, 2)
-            rowv = rowv + wx[c] * blocks[(a, b)][..., 2 * i + j]
-        val = val + wy[r] * rowv
-    return jnp.where(interior, val, lin), valid
 
 
 def sample_nearest_trunc(
@@ -424,32 +264,37 @@ def shift2d(
     return out
 
 
-def checkerboard_pack(arr: jax.Array, parity: int) -> jax.Array:
+def checkerboard_pack(arr: jax.Array, parity) -> jax.Array:
     """Pack the checkerboard colour ``(x + y) % 2 == parity`` into a dense
     half-grid: ``(..., H, W) -> (..., H, W//2)`` with rows preserved.
 
     Row y keeps columns ``x = (parity + y) % 2, +2, ...``.  H and W must be
-    even.  This is how the red-black update avoids evaluating costs for the
-    inactive colour (the reference's separate black/red kernel launches,
+    even.  ``parity`` may be traced, so one compiled half-step serves both
+    colours.  This is how the red-black update avoids evaluating costs for
+    the inactive colour (the reference's separate black/red kernel launches,
     ACMMP.cu:1327-1349, achieve the same by construction).
     """
     H, W = arr.shape[-2], arr.shape[-1]
     assert H % 2 == 0 and W % 2 == 0, (H, W)
-    even = arr[..., 0::2, parity::2]
-    odd = arr[..., 1::2, (1 - parity)::2]
+    a = arr.reshape(*arr.shape[:-2], H // 2, 2, W // 2, 2)
+    even = jax.lax.dynamic_index_in_dim(a[..., 0, :, :], parity, axis=-1,
+                                        keepdims=False)
+    odd = jax.lax.dynamic_index_in_dim(a[..., 1, :, :], 1 - parity, axis=-1,
+                                       keepdims=False)
     stacked = jnp.stack([even, odd], axis=-2)  # (..., H/2, 2, W/2)
     return stacked.reshape(*arr.shape[:-2], H, W // 2)
 
 
-def checkerboard_unpack(packed: jax.Array, full: jax.Array, parity: int) -> jax.Array:
-    """Scatter a packed half-grid back into ``full`` at its colour's pixels."""
+def checkerboard_unpack(packed: jax.Array, full: jax.Array, parity) -> jax.Array:
+    """Write a packed half-grid back into ``full`` at its colour's pixels."""
     H, W = full.shape[-2], full.shape[-1]
     pr = packed.reshape(*packed.shape[:-2], H // 2, 2, W // 2)
-    even = pr[..., 0, :]
-    odd = pr[..., 1, :]
-    out = full.at[..., 0::2, parity::2].set(even)
-    out = out.at[..., 1::2, (1 - parity)::2].set(odd)
-    return out
+    f = full.reshape(*full.shape[:-2], H // 2, 2, W // 2, 2)
+    even = jax.lax.dynamic_update_index_in_dim(
+        f[..., 0, :, :], pr[..., 0, :][..., None], parity, axis=-1)
+    odd = jax.lax.dynamic_update_index_in_dim(
+        f[..., 1, :, :], pr[..., 1, :][..., None], 1 - parity, axis=-1)
+    return jnp.stack([even, odd], axis=-3).reshape(full.shape)
 
 
 def checkerboard_coords(height: int, width: int, parity: int):

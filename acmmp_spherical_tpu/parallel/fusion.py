@@ -1,12 +1,12 @@
 """Distributed fusion: reference views sharded over the device mesh.
 
 SURVEY.md 5.8 #3: fusion needs every view's depth/normal/color rasters.  The
-TPU-native shape: replicate the (V, Hp, Wp) raster stacks across the mesh
-(a one-time broadcast; on a pod slice the per-view rasters produced by the
-view-parallel passes reshard with one all-gather over ICI) and shard the
+Mesh shape: replicate the (V, Hp, Wp) raster stacks across the mesh
+(a one-time broadcast; the per-view rasters produced by the view-parallel
+passes reshard with one all-gather) and shard the
 *reference-view loop* -- each device fuses its shard of reference views into
 fixed-size point buffers + validity flags, which are compacted on the host
-exactly as in the single-chip path.
+exactly as in the single-device path.
 """
 
 from __future__ import annotations

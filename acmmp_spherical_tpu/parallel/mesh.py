@@ -1,7 +1,7 @@
 """Device mesh helpers for multi-chip / multi-host runs.
 
 The reference is single-GPU (``cudaSetDevice(0)``, main.cpp:77) with all
-cross-view dataflow through the filesystem.  The TPU-native scaling axes
+cross-view dataflow through the filesystem.  The scaling axes here
 (SURVEY.md 5.8) are:
 
 * ``view``: the embarrassingly parallel per-Problem loop (data parallel);

@@ -106,7 +106,7 @@ def multichip_train_step(mesh: Mesh, params: PatchMatchParams,
     depth exchange reshards per-problem depth maps to replicated, which XLA
     implements as an all-gather over the mesh.
     """
-    geom_params = params.with_geom(False)
+    geom_params = params.with_geom()
     shard = NamedSharding(mesh, P("view"))
     repl = NamedSharding(mesh, P())
 

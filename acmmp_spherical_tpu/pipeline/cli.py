@@ -7,7 +7,8 @@ one CLI:
 .. code-block:: bash
 
     python -m acmmp_spherical_tpu reconstruct <dense_folder> [--no-prior]
-        [--resume] [--seed N] [--max-src-views K]
+        [--resume] [--seed N] [--max-src-views K] [--platform auto|cpu|gpu]
+        [--fast-ncc auto|on|off]
     python -m acmmp_spherical_tpu convert --dense_folder D --save_folder S
         [--model_ext .txt|.bin] [--top_k 20] [--min_shared 10] [--theta0 1.0]
 """
@@ -20,12 +21,19 @@ import sys
 
 
 def _set_platform(platform: str) -> None:
-    if platform != "auto":
-        # the env var alone is not enough on hosts whose sitecustomize pins
-        # a platform plugin; the config update wins over both
-        import jax
+    """Pin the JAX backend ("auto": JAX's default) and set up the persistent
+    compilation cache."""
+    import jax
 
+    from acmmp_spherical_tpu.utils.compile_cache import enable_compile_cache
+
+    if platform != "auto":
         jax.config.update("jax_platforms", platform)
+        # the setting is ignored once a backend is up: check what JAX uses
+        found = jax.devices()[0].platform
+        if found != platform:
+            raise RuntimeError(f"--platform {platform}: JAX runs on {found!r}")
+    enable_compile_cache()
 
 
 def _reconstruct(args) -> int:
@@ -54,9 +62,14 @@ def _reconstruct(args) -> int:
         batch_problems=args.batch,
         size_bound=args.size_bound,
         tile_shard=args.tile_shard,
+        fast_ncc=args.fast_ncc,
     )
-    n = run_pipeline(args.dense_folder, cfg)
-    return 0 if n > 0 else 1
+    result = run_pipeline(args.dense_folder, cfg)
+    if result.skipped:
+        print(f"reconstruct: {len(result.skipped)} pass(es) skipped after "
+              f"repeated failures: {result.skipped}", file=sys.stderr)
+        return 1
+    return 0 if result.n_points > 0 else 1
 
 
 def _convert(args) -> int:
@@ -95,8 +108,11 @@ def main(argv=None) -> int:
     r.add_argument("--tile-shard", type=int, default=1,
                    help="intra-image tile parallelism: shard each depth map "
                         "along the image width over N local devices (GSPMD "
-                        "halo exchange) for frames too large for one chip; "
+                        "halo exchange) for frames too large for one device; "
                         "forces the exact path and disables view batching")
+    r.add_argument("--fast-ncc", default="auto", choices=["auto", "on", "off"],
+                   help="per-pixel-tile Pallas cost kernel (auto: where its "
+                        "Triton route compiles; off: the exact XLA path)")
     r.add_argument("--distributed", action="store_true",
                    help="initialise jax.distributed for multi-host runs; "
                         "each host runs this same command against the shared "
@@ -107,7 +123,7 @@ def main(argv=None) -> int:
     r.add_argument("--num-processes", type=int, default=None)
     r.add_argument("--process-id", type=int, default=None)
     r.add_argument("--platform", default="auto",
-                   choices=["auto", "cpu", "tpu"],
+                   choices=["auto", "cpu", "gpu"],
                    help="pin the jax backend (auto: the default platform)")
     r.set_defaults(fn=_reconstruct)
 
@@ -121,7 +137,7 @@ def main(argv=None) -> int:
     c.add_argument("--top_k", type=int, default=20)
     c.add_argument("--min_shared", type=int, default=10)
     c.add_argument("--platform", default="auto",
-                   choices=["auto", "cpu", "tpu"])
+                   choices=["auto", "cpu", "gpu"])
     c.set_defaults(fn=_convert)
 
     args = p.parse_args(argv)

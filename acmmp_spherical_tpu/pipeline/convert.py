@@ -6,8 +6,9 @@ shared-track + triangulation-angle pair scoring, ranked neighbour lists, and
 the cams/ pair.txt images/ output layout consumed by the pipeline.
 
 Differences from the reference: scoring is vectorised numpy instead of an
-mp.Pool of per-pair workers, and images are converted with cv2 only when not
-already jpg (same behavior, reference py:399-406).
+mp.Pool of per-pair workers, and JPEG, PNG and PGM images are copied as they
+are (the reference converts everything to .jpg, py:399-406); other formats
+are decoded with Pillow and written as PNG.
 """
 
 from __future__ import annotations
@@ -108,6 +109,18 @@ def _pair_score(img_i, img_j, points3d, ci, cj, theta0):
     if np.percentile(angs, 75) < theta0:
         return 0.0
     return float(len(shared))
+
+
+def _convert_to_png(src: Path, dst: Path) -> None:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{src}: converting {src.suffix} images needs the "
+                          "Pillow package (pip install pillow)") from e
+    from acmmp_spherical_tpu.io.image import write_png
+
+    with Image.open(src) as im:
+        write_png(dst, np.asarray(im.convert("RGB")))
 
 
 def convert_colmap_scene(
@@ -213,13 +226,12 @@ def convert_colmap_scene(
     img_dir = dense / "images"
     for i in range(N):
         src = img_dir / imgs[i + 1].name
-        dst = save / "images" / f"{i:08d}.jpg"
         if not src.exists():
             log.warning("missing image %s", src)
             continue
-        if src.suffix.lower() != ".jpg":
-            import cv2
-
-            cv2.imwrite(str(dst), cv2.imread(str(src)))
+        suffix = src.suffix.lower()
+        if suffix in (".jpg", ".jpeg", ".png", ".pgm"):
+            ext = ".jpg" if suffix == ".jpeg" else suffix
+            shutil.copyfile(src, save / "images" / f"{i:08d}{ext}")
         else:
-            shutil.copyfile(src, dst)
+            _convert_to_png(src, save / "images" / f"{i:08d}.png")

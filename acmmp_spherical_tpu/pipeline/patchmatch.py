@@ -49,7 +49,7 @@ def run_patchmatch(
     state to a width sharding so GSPMD partitions the propagation stencils
     with halo exchange (ring on the width axis for SPHERE).
     """
-    inputs = prepare_inputs(inputs, params)
+    inputs = prepare_inputs(inputs)
     ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
     k_init, k_iters = jax.random.split(key)
 
@@ -63,53 +63,23 @@ def run_patchmatch(
     if shard_state is not None:
         state = shard_state(state)
 
-    n_iters = params.max_iterations
-    first_iter = 0
-    fresh_random = not (params.geom_consistency or params.hierarchy
-                        or params.planar_prior)
-    if (params.fast_ncc and params.exact_first_iteration and fresh_random
-            and n_iters > 0):
-        # the first iteration after random init sees scattered plane fields:
-        # run it on the exact path, then switch to the windowed kernel
-        import dataclasses as _dc
-
-        params0 = _dc.replace(params, fast_ncc=False)
-        k0a, k0b = jax.random.split(jax.random.fold_in(k_iters, 0))
-        state = checkerboard_halfstep(state, inputs, ctx, params0, k0a, 0, 0)
-        state = checkerboard_halfstep(state, inputs, ctx, params0, k0b, 0, 1)
-        if shard_state is not None:
-            state = shard_state(state)
-        first_iter = 1
-
-    # Iteration loop: STATICALLY UNROLLED on TPU, lax.scan elsewhere.  On
-    # TPU v5e a while-loop wrapping the rectified Pallas kernel faults the
-    # device ("TPU backend error (Internal)") for some shape classes
-    # (reproduced at 800x600x4src: scan length >= 2 faults, while the SAME
-    # body unrolled in one jit -- identical values, identical RNG -- runs
-    # fine; bisect 2026-08-19).  On CPU the scan is kept: the ~3x smaller
-    # programs avoid the known XLA-CPU compiler segfault under heavy test
-    # suites, and the two lowerings are numerically identical (the key
-    # schedule fold_in(k_iters, i) is shared), so the CPU-generated golden
-    # fixtures gate the TPU run (scripts/drift_gate.py).
+    # one scan step per half-step, the colour (parity) traced: the program
+    # holds one copy of the half-step instead of two, which halves what XLA
+    # compiles.  Iteration i runs black then red with the two halves of
+    # split(fold_in(k_iters, i)).
     def step(state, sk):
-        k, it = sk
-        k0, k1 = jax.random.split(k)
-        state = checkerboard_halfstep(state, inputs, ctx, params, k0, it, 0)
-        if shard_state is not None:
-            state = shard_state(state)
-        state = checkerboard_halfstep(state, inputs, ctx, params, k1, it, 1)
+        k, it, parity = sk
+        state = checkerboard_halfstep(state, inputs, ctx, params, k, it, parity)
         if shard_state is not None:
             state = shard_state(state)
         return state, None
 
-    if jax.default_backend() == "tpu":
-        for i in range(first_iter, n_iters):
-            state, _ = step(state, (jax.random.fold_in(k_iters, i),
-                                    jnp.int32(i)))
-    else:
-        iters = jnp.arange(first_iter, n_iters)
-        iter_keys = jax.vmap(lambda i: jax.random.fold_in(k_iters, i))(iters)
-        state, _ = jax.lax.scan(step, state, (iter_keys, iters))
+    n = params.max_iterations
+    keys = jax.vmap(lambda i: jax.random.split(jax.random.fold_in(k_iters, i))
+                    )(jnp.arange(n)).reshape(2 * n)
+    iters = jnp.repeat(jnp.arange(n), 2)
+    parities = jnp.tile(jnp.arange(2), n)
+    state, _ = jax.lax.scan(step, state, (keys, iters, parities))
 
     depth, normal_world = extract_depth_and_normal(state, inputs.ref_cam)
     depth = checkerboard_median_filter(
@@ -118,103 +88,3 @@ def run_patchmatch(
     )
     return depth, normal_world, state.cost, state
 
-
-# ---------------------------------------------------------------------------
-# split-program execution (TPU reliability mode)
-# ---------------------------------------------------------------------------
-
-@functools.partial(jax.jit, static_argnames=("params",))
-def _split_prepare(inputs, params, reuse=None):
-    # ``reuse``: prepared inputs of another pass of the same (image, scale);
-    # the depth-independent context pieces are adopted instead of rebuilt
-    # (pipeline ctx-reuse cache, pass_runner.process_problem)
-    return prepare_inputs(inputs, params, reuse=reuse)
-
-
-@functools.partial(jax.jit, static_argnames=("params",))
-def _split_init(inputs, params, key, prev_state, seed_normal_world,
-                seed_depth):
-    ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
-    k_init, k_iters = jax.random.split(key)
-    state = initialize_state(
-        inputs, params, k_init, prev_state=prev_state,
-        seed_normal_world=seed_normal_world, seed_depth=seed_depth, ctx=ctx)
-    return ctx, state, k_iters
-
-
-@functools.partial(jax.jit, static_argnames=("params", "color"))
-def _split_halfstep(state, inputs, ctx, params, k, it, color):
-    # ``it`` rides traced (annealed thresholds depend on it) so all
-    # iterations share one compiled program per (params, color)
-    return checkerboard_halfstep(state, inputs, ctx, params, k,
-                                 jnp.int32(it), color)
-
-
-@functools.partial(jax.jit, static_argnames=("params",))
-def _split_finish(state, inputs, params):
-    depth, normal_world = extract_depth_and_normal(state, inputs.ref_cam)
-    depth = checkerboard_median_filter(
-        depth, state.cost, min_cost=params.filter_min_cost,
-        wrap_x=inputs.ref_cam.model == SPHERE)
-    return depth, normal_world, state.cost, state
-
-
-def run_patchmatch_split(
-    inputs: PatchMatchInputs,
-    params: PatchMatchParams,
-    key: jax.Array,
-    prev_state: Optional[PlaneState] = None,
-    seed_normal_world: Optional[jax.Array] = None,
-    seed_depth: Optional[jax.Array] = None,
-    prepared: bool = False,
-):
-    """run_patchmatch with each stage (init, every half-step, extraction)
-    compiled and dispatched as its OWN program.
-
-    Exists for reliability, not speed: on TPU v5e certain LARGE fused
-    pass programs at some shape classes crash the worker outright --
-    round 3 hit it for lax.scan-wrapped rect kernels (fixed by unrolling),
-    and round 5's envelope hit it again for the fully-unrolled SEEDED
-    passes at the 800x600 coarse scale (prior and geom variants; the
-    unseeded photometric program at identical shapes and settings is
-    clean in 10/10 config bisects, and the SAME seeded pass decomposed
-    exactly as here runs clean with identical data and keys --
-    scripts/repro_e2e_fault.py).  The split costs one dispatch per
-    half-step and forgoes cross-stage fusion: measured ~4%% at the bench
-    point (6 x 510 ms half-steps + init 158 + ctx 408 = 3626 ms vs
-    3495 ms fused).  The production pipeline uses this mode on TPU
-    (pipeline/pass_runner); bench.py keeps the fused path at its proven
-    shape.  The key schedule matches run_patchmatch exactly, and the
-    stages are the same traced functions, so outputs differ only by
-    cross-stage fusion reassociation (gated by the shared fixtures).
-
-    ``shard_state`` is not supported here -- the tile-shard mode runs the
-    exact path through fused run_patchmatch (parallel/tile.py).
-
-    ``prepared``: the caller already ran ``_split_prepare`` (e.g. through
-    the pipeline's cross-pass context cache) -- skip it.
-    """
-    inputs2 = inputs if prepared else _split_prepare(inputs, params)
-    ctx, state, k_iters = _split_init(
-        inputs2, params, key, prev_state, seed_normal_world, seed_depth)
-
-    n_iters = params.max_iterations
-    first_iter = 0
-    fresh_random = not (params.geom_consistency or params.hierarchy
-                        or params.planar_prior)
-    if (params.fast_ncc and params.exact_first_iteration and fresh_random
-            and n_iters > 0):
-        import dataclasses as _dc
-
-        params0 = _dc.replace(params, fast_ncc=False)
-        k0a, k0b = jax.random.split(jax.random.fold_in(k_iters, 0))
-        state = _split_halfstep(state, inputs2, ctx, params0, k0a, 0, 0)
-        state = _split_halfstep(state, inputs2, ctx, params0, k0b, 0, 1)
-        first_iter = 1
-
-    for i in range(first_iter, n_iters):
-        k0, k1 = jax.random.split(jax.random.fold_in(k_iters, i))
-        state = _split_halfstep(state, inputs2, ctx, params, k0, i, 0)
-        state = _split_halfstep(state, inputs2, ctx, params, k1, i, 1)
-
-    return _split_finish(state, inputs2, params)

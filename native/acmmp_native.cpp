@@ -2,7 +2,7 @@
 //
 // The reference implements its entire host runtime in C++ (IO, orchestration,
 // prior construction -- reference ACMMP.cpp / main.cpp); this library provides
-// the TPU framework's native equivalents for the host-side hot spots, exposed
+// this framework's native equivalents for the host-side hot spots, exposed
 // through a C ABI consumed via ctypes (no pybind11 dependency):
 //
 //  * .dmb raster codec (reference ACMMP.cpp:363-479)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Full-envelope end-to-end run on real hardware (VERDICT r2 items 2+7).
+"""Full-envelope end-to-end run on one GPU (VERDICT r2 items 2+7).
 
 Runs `reconstruct` (the production multi-scale pipeline: photometric+prior,
 2x geom per scale, JBU between scales, fusion) on a synthetic scene whose
@@ -9,7 +9,7 @@ main.cpp:35-71), and records machine-readable evidence:
 
   * per-pass-kind wall-clock totals + counts (pipeline Timings)
   * end-to-end depth-maps/s/chip (finest-scale maps / total wall)
-  * peak device memory (the rect working set scales with diag^2)
+  * peak device memory
   * compile accounting: total JAX compile seconds (jax.monitoring) and a
     second run against the persistent compilation cache showing them
     amortised (the reference pays zero recompiles, main.cpp:392-482)
@@ -17,7 +17,7 @@ main.cpp:35-71), and records machine-readable evidence:
 
 Usage:
   python scripts/e2e_envelope.py --size 3200 2400 --views 5 \
-      --out E2E_r3.json [--workdir /tmp/acmmp_e2e]
+      --workdir WORKDIR [--out WORKDIR/e2e.json]
 
 The script re-execs itself (--inner) so the warm-cache run starts from a
 fresh process (the in-process jit cache would otherwise hide compile costs).
@@ -33,17 +33,13 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-CACHE_DIR = "/tmp/acmmp_jax_cache"
-
-
 def inner(args) -> None:
-    os.makedirs(CACHE_DIR, exist_ok=True)
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", CACHE_DIR)
     import numpy as np
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from acmmp_spherical_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     compile_secs = [0.0]
     compile_events = [0]
@@ -53,19 +49,13 @@ def inner(args) -> None:
             compile_secs[0] += duration
             compile_events[0] += 1
 
-    try:
-        from jax import monitoring
-
-        monitoring.register_event_duration_secs_listener(_on_duration)
-    except Exception:
-        pass
+    jax.monitoring.register_event_duration_secs_listener(_on_duration)
 
     from acmmp_spherical_tpu.config import PipelineConfig
     from acmmp_spherical_tpu.io import dmb
     from acmmp_spherical_tpu.io.ply import read_ply
     from acmmp_spherical_tpu.io.scene import ScenePaths
     from acmmp_spherical_tpu.pipeline import multiscale
-    from acmmp_spherical_tpu.utils.log import Timings
     from acmmp_spherical_tpu.utils.synthetic import (
         CubeRoom, make_ring_of_cameras, render_scene,
         write_synthetic_scene_to_disk,
@@ -75,7 +65,7 @@ def inner(args) -> None:
     n = args.views
     work = Path(args.workdir)
     scene_dir = work / "scene"
-    cache = Path(f"/tmp/acmmp_e2e_scene_{W}x{H}x{n}.npz")
+    cache = work / f"gt_depth0_{W}x{H}x{n}.npz"
 
     if not (scene_dir / "pair.txt").exists() or not cache.exists():
         scene = CubeRoom()
@@ -90,32 +80,27 @@ def inner(args) -> None:
     gt_depth0 = np.load(cache)["depth0"]
 
     # fresh output dir per run (the scene inputs persist); --resume keeps
-    # completed passes (crash-tolerant envelope runs: the v5e worker crash
-    # at this shape class is flaky, so attempts retry through the manifest)
+    # completed passes
     sp = ScenePaths(scene_dir)
     if sp.output_dir.exists() and not args.resume:
         import shutil
 
         shutil.rmtree(sp.output_dir)
 
-    timings = Timings()
-    multiscale.Timings = lambda: timings  # capture the pipeline's scopes
-
     dev = jax.devices()[0]
     print(f"[e2e] device: {dev.platform} {getattr(dev, 'device_kind', '?')}",
           file=sys.stderr)
     t0 = time.perf_counter()
     cfg = PipelineConfig(skip_if_complete=bool(args.resume))
-    n_points = multiscale.run_pipeline(scene_dir, cfg)
+    result = multiscale.run_pipeline(scene_dir, cfg)
+    if result.skipped:
+        sys.exit(f"[e2e] passes skipped: {result.skipped}")
+    timings = result.timings
     wall = time.perf_counter() - t0
 
-    mem = {}
-    try:
-        stats = dev.memory_stats() or {}
-        mem = {k: int(v) for k, v in stats.items()
-               if k in ("bytes_in_use", "peak_bytes_in_use", "largest_alloc_size")}
-    except Exception:
-        pass
+    stats = dev.memory_stats() or {}
+    mem = {k: int(v) for k, v in stats.items()
+           if k in ("bytes_in_use", "peak_bytes_in_use", "largest_alloc_size")}
 
     # finest-scale quality vs analytic GT (image 0)
     d = dmb.read_depth_dmb(sp.depth_file(0, geom=True))
@@ -131,6 +116,7 @@ def inner(args) -> None:
     pts, _, _ = read_ply(sp.output_dir / "ACMMP_model.ply")
     m = np.max(np.abs(pts), axis=1)
     out = {
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
         "size": [W, H],
         "views": n,
         "wall_s": round(wall, 1),
@@ -152,16 +138,16 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, nargs=2, default=[3200, 2400])
     ap.add_argument("--views", type=int, default=5)
-    ap.add_argument("--workdir", default="/tmp/acmmp_e2e")
-    ap.add_argument("--out", default="E2E_r3.json")
+    ap.add_argument("--workdir", required=True)
+    ap.add_argument("--out", default=None,
+                    help="result JSON (default: WORKDIR/e2e.json)")
     ap.add_argument("--inner", action="store_true")
-    ap.add_argument("--inner-out", default="/tmp/acmmp_e2e_inner.json")
+    ap.add_argument("--inner-out", default=None)
     ap.add_argument("--single-run", action="store_true",
                     help="skip the warm-cache second run")
     ap.add_argument("--resume", action="store_true",
-                    help="keep existing outputs and skip completed passes "
-                         "(crash-tolerant retries); implies per-attempt "
-                         "wall times that exclude already-done passes")
+                    help="keep existing outputs and skip completed passes; "
+                         "wall times then exclude already-done passes")
     args = ap.parse_args()
 
     if args.inner:
@@ -195,7 +181,8 @@ def main() -> None:
         out["warm"] = runs[1]
         out["compile_amortised_s"] = round(
             runs[0]["wall_s"] - runs[1]["wall_s"], 1)
-    Path(args.out).write_text(json.dumps(out, indent=1))
+    Path(args.out or Path(args.workdir) / "e2e.json").write_text(
+        json.dumps(out, indent=1))
     print(json.dumps({"e2e": out.get("warm", runs[0])}))
 
 

@@ -30,7 +30,6 @@ def main() -> int:
     ap.add_argument("--size", type=int, nargs=2, default=[128, 96])
     ap.add_argument("--views", type=int, default=5)
     ap.add_argument("--fast", default="auto", choices=["on", "off", "auto"])
-    ap.add_argument("--rect", default="auto", choices=["on", "off", "auto"])
     ap.add_argument("--scene", default="cube", choices=["cube", "occluded"])
     ap.add_argument("--hostile", action="store_true",
                     help="per-view gain/bias + specular lobe + sensor noise "
@@ -65,11 +64,18 @@ def main() -> int:
     root = tempfile.mkdtemp() + "/dense"
     write_synthetic_scene_to_disk(root, cams, images)
 
-    cfg = dataclasses.replace(PipelineConfig(), fast_ncc=args.fast,
-                              rect_ncc=args.rect)
+    import jax
+
+    from acmmp_spherical_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    cfg = dataclasses.replace(PipelineConfig(), fast_ncc=args.fast)
     t0 = time.time()
-    n_points = run_pipeline(root, cfg)
+    result = run_pipeline(root, cfg)
     wall = time.time() - t0
+    if result.skipped:
+        raise RuntimeError(f"passes skipped: {result.skipped}")
+    n_points = result.n_points
 
     sp = ScenePaths(root)
     depth_stats = depth_error_stats(read_depth_dmb(sp.depth_file(0, geom=True)),
@@ -91,7 +97,7 @@ def main() -> int:
         "scene": f"{args.scene}_room_{args.model}_{W}x{H}x{args.views}v"
                  + ("_hostile" if args.hostile else ""),
         "fast_ncc": args.fast,
-        "rect_ncc": args.rect,
+        "device": jax.devices()[0].device_kind,
         "wall_s": round(wall, 1),
         "n_points": int(n_points),
         **{k: round(v, 4) for k, v in depth_stats.items()},

@@ -45,8 +45,7 @@ def test_batched_pipeline_quality(scene, tmp_path, monkeypatch):
     root = _write(tmp_path, scene, "batched")
     cfg = dataclasses.replace(PipelineConfig(), batch_problems="on")
 
-    # the pipeline falls back to serial per-problem execution if a batched
-    # pass raises -- assert the batched path really ran (and never fell back)
+    # assert the batched path really ran and the serial path never did
     from acmmp_spherical_tpu.pipeline import batch_runner
     from acmmp_spherical_tpu.pipeline import multiscale as ms
 
@@ -57,9 +56,9 @@ def test_batched_pipeline_quality(scene, tmp_path, monkeypatch):
     monkeypatch.setattr(
         ms, "process_problem",
         lambda *a, **k: (_ for _ in ()).throw(
-            AssertionError("serial fallback must not run")))
+            AssertionError("serial path must not run")))
 
-    n_points = run_pipeline(root, cfg)
+    n_points = run_pipeline(root, cfg).n_points
     assert n_points > 500
     assert len(calls) == 3  # photometric + 2 geometric passes
 

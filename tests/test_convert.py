@@ -26,7 +26,7 @@ def test_qvec_roundtrip(rng):
 
 def _write_synthetic_colmap(root, n_views=5, n_points=400):
     """Materialise a COLMAP text model of the cube scene with real tracks."""
-    import cv2
+    from acmmp_spherical_tpu.io.image import write_png
 
     scene = CubeRoom()
     W, H = 64, 48
@@ -82,8 +82,8 @@ def _write_synthetic_colmap(root, n_views=5, n_points=400):
             f.write(" ".join(
                 f"{x} {y} {pid if pid in kept else -1}"
                 for x, y, pid in obs[v]) + "\n")
-            cv2.imwrite(str(imgdir / f"view{v}.png"),
-                        np.clip(images[v], 0, 255).astype(np.uint8))
+            write_png(imgdir / f"view{v}.png",
+                      np.clip(images[v], 0, 255).astype(np.uint8))
 
     with open(sparse / "points3D.txt", "w") as f:
         f.write("# points\n")
@@ -118,7 +118,8 @@ def test_convert_colmap_scene(tmp_path):
         assert dmin < np.median(gt) < dmax
         np.testing.assert_allclose(np.asarray(cam.R), np.asarray(cams[i].R),
                                    atol=1e-6)
-        assert (out / "images" / f"{i:08d}.jpg").exists()
+        # PNG sources are copied losslessly, under the renamed scheme
+        assert (out / "images" / f"{i:08d}.png").exists()
 
     # round-trip: the converter's text model parses through read_model
     c, im, pt = read_model(root / "sparse", ".txt")
@@ -271,6 +272,7 @@ def test_converter_parity_with_reference_script(tmp_path):
                                    rtol=1e-6)
         np.testing.assert_allclose(np.asarray(co.depth_range),
                                    np.asarray(cr.depth_range), rtol=1e-5)
-        # images materialised under the same renamed scheme
-        assert (out_our / "images" / f"{i:08d}.jpg").exists()
+        # images materialised under the same renamed scheme (ours keep the
+        # source's PNG format)
+        assert (out_our / "images" / f"{i:08d}.png").exists()
         assert (out_ref / "images" / f"{i:08d}.jpg").exists()

@@ -59,7 +59,9 @@ def test_transient_failure_retried(tmp_path, monkeypatch):
         return real(sp, problems, idx, cfg, **kw)
 
     monkeypatch.setattr(ms, "process_problem", flaky)
-    n_points = ms.run_pipeline(root, _small_cfg())
+    result = ms.run_pipeline(root, _small_cfg())
+    n_points = result.n_points
+    assert result.skipped == []
     assert fails["n"] == 1  # the fault fired
     assert n_points > 500
     sp = ScenePaths(root)
@@ -70,8 +72,9 @@ def test_transient_failure_retried(tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_persistent_failure_skips_view(tmp_path, monkeypatch):
-    """A view that fails every attempt is skipped; the pipeline completes and
-    fusion tolerates the missing inputs (reference behaviour: abort)."""
+    """A view that fails every attempt is skipped and reported; the pipeline
+    completes and fusion tolerates the missing inputs (reference behaviour:
+    abort)."""
     _make_scene(tmp_path)
     root = tmp_path / "dense"
 
@@ -83,7 +86,9 @@ def test_persistent_failure_skips_view(tmp_path, monkeypatch):
         return real(sp, problems, idx, cfg, **kw)
 
     monkeypatch.setattr(ms, "process_problem", broken)
-    n_points = ms.run_pipeline(root, _small_cfg())
+    result = ms.run_pipeline(root, _small_cfg())
+    assert ("photometric_s0", 2) in result.skipped
+    n_points = result.n_points
     assert n_points > 300  # the other views still fuse
     sp = ScenePaths(root)
     assert not sp.depth_file(2, geom=True).exists()
@@ -139,7 +144,7 @@ def test_two_host_run_exchanges_via_files(tmp_path, monkeypatch):
     def host(proc):
         local.proc = proc
         try:
-            results[proc] = ms.run_pipeline(root, _small_cfg())
+            results[proc] = ms.run_pipeline(root, _small_cfg()).n_points
         except Exception as e:  # surface thread failures in the main thread
             results[proc] = e
 

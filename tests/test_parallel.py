@@ -134,7 +134,7 @@ def test_tile_shard_pipeline_matches_serial(tmp_path):
         root = tmp_path / f"dense_{shard}"
         write_synthetic_scene_to_disk(root, cams, images)
         cfg = PipelineConfig(tile_shard=shard, batch_problems="off")
-        n_pts = run_pipeline(root, cfg)
+        n_pts = run_pipeline(root, cfg).n_points
         assert n_pts > 500, (shard, n_pts)
         results[shard] = read_depth_dmb(
             ScenePaths(root).depth_file(0, geom=True))

@@ -30,26 +30,11 @@ def scene_dir(tmp_path_factory):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("rect", [
-    "off",
-    pytest.param("on", marks=pytest.mark.skipif(
-        not __import__("os").environ.get("ACMMP_E2E_RECT"),
-        reason="interpret-mode rect kernels: ~25 min on CPU; run with "
-               "ACMMP_E2E_RECT=1 (verified green 2026-08-18)")),
-])
-def test_full_pipeline_small_pinhole(scene_dir, rect, tmp_path):
-    """``rect="on"`` drives every photometric/hierarchy AND geometric pass
-    through the epipolar-rectified kernel incl. the fused geom term
-    (interpret mode on CPU)."""
-    import shutil
-
+def test_full_pipeline_small_pinhole(scene_dir):
     root, scene, gt_depths = scene_dir
-    if rect == "on":
-        new_root = tmp_path / "dense"
-        shutil.copytree(root, new_root)
-        root = new_root
-    cfg = PipelineConfig(rect_ncc=rect)
-    n_points = run_pipeline(root, cfg)
+    result = run_pipeline(root, PipelineConfig())
+    assert result.skipped == []
+    n_points = result.n_points
 
     # per-view geometric depth maps exist and are accurate
     from acmmp_spherical_tpu.io.scene import ScenePaths
@@ -83,7 +68,7 @@ def test_pipeline_resume_skips(scene_dir):
     import time
 
     t0 = time.time()
-    n_points = run_pipeline(root, cfg)
+    n_points = run_pipeline(root, cfg).n_points
     assert n_points > 2000
     assert time.time() - t0 < 60.0  # no recompute of the patchmatch passes
 
